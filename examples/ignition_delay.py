@@ -1,4 +1,4 @@
-"""Example: batched ignition-delay computation on TPU.
+"""Example: batched ignition-delay computation on the accelerator.
 
 Computes ignition delays for a grid of H2/air initial temperatures and
 equivalence ratios — every state integrated in parallel on-device with
@@ -6,7 +6,10 @@ the analytical Jacobian (Rosenbrock23). The reference workflow requires
 exporting generated C into an external stiff integrator; here it is
 five lines of JAX.
 
-Run:  python examples/ignition_delay.py [mech.cti]
+Run:  python examples/ignition_delay.py MECH
+
+where MECH is an H2/O2 mechanism file (Chemkin or Cantera) that
+contains H2, O2 and N2.
 """
 
 import sys
@@ -17,14 +20,14 @@ jax.config.update('jax_enable_x64', True)
 
 import numpy as np  # noqa: E402
 
-import pyjac_tpu as pj  # noqa: E402
-from pyjac_tpu.testers import pasr  # noqa: E402
+import pyjac_jax as pj  # noqa: E402
+from pyjac_jax.testers import pasr  # noqa: E402
 
 
 def main():
-    mech_path = sys.argv[1] if len(sys.argv) > 1 else \
-        '/root/reference/data/h2o2.cti'
-    mech = pj.Mechanism.from_files(mech_path)
+    if len(sys.argv) != 2:
+        raise SystemExit('usage: python examples/ignition_delay.py MECH')
+    mech = pj.Mechanism.from_files(sys.argv[1])
     packed = pj.pack(mech)
 
     T0 = np.linspace(950.0, 1400.0, 10)

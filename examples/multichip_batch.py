@@ -1,8 +1,8 @@
-"""Example: sharding a huge state batch across a TPU mesh.
+"""Example: sharding a huge state batch across a device mesh.
 
-Evaluates analytical Jacobians for a large PaSR-style batch with the
-states sharded over all available chips (ICI). Run on a multi-chip host,
-or simulate one on CPU:
+Evaluates analytical Jacobians for a large batch of the flagship
+mechanism's states with the batch sharded over all available devices.
+Run on a multi-GPU host, or simulate one on CPU:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/multichip_batch.py
@@ -19,21 +19,24 @@ import jax  # noqa: E402
 
 jax.config.update('jax_enable_x64', True)
 
+import sys  # noqa: E402
+
 import numpy as np  # noqa: E402
 
-import pyjac_tpu as pj  # noqa: E402
-from pyjac_tpu.parallel.mesh import (BatchEvaluator, make_mesh,  # noqa: E402
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
+
+from __graft_entry__ import _flagship_packed  # noqa: E402
+from pyjac_jax.parallel.mesh import (BatchEvaluator, make_mesh,  # noqa: E402
                                      sharded_step)
-from pyjac_tpu.testers.synthetic import random_states  # noqa: E402
+from pyjac_jax.testers.synthetic import random_states  # noqa: E402
 
 
 def main():
-    mech = pj.Mechanism.from_files('/root/reference/data/h2o2.cti')
-    packed = pj.pack(mech)
+    mech, packed = _flagship_packed()
     mesh = make_mesh()
     print('mesh devices:', mesh.devices.size)
 
-    # one fused sharded step (J, dydt, global norm over ICI)
+    # one fused sharded step (J, dydt, global max-norm across devices)
     step = sharded_step(packed, mesh)
     y, T, P = random_states(mech, 64 * mesh.devices.size, seed=0)
     J, f, norm = step(np.asarray(y), np.asarray(P))

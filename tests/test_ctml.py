@@ -6,9 +6,9 @@ below are the YAML/Chemkin values pre-converted)."""
 import numpy as np
 import pytest
 
-from pyjac_tpu.core.chemkin import MechanismError
-from pyjac_tpu.core.ctml import read_mech_ctml
-from pyjac_tpu.core.ctyaml import read_mech_yaml
+from pyjac_jax.core.chemkin import MechanismError
+from pyjac_jax.core.ctml import read_mech_ctml
+from pyjac_jax.core.ctyaml import read_mech_yaml
 
 from tests.test_yaml import YAML
 
@@ -174,10 +174,10 @@ def test_ctml_through_full_pipeline(pair, tmp_path):
     """CTML -> Mechanism -> pack -> Jacobian vs AD."""
     import jax.numpy as jnp
 
-    from pyjac_tpu.core.mech import Mechanism
-    from pyjac_tpu.core.pack import pack
-    from pyjac_tpu.ops.jacobian import eval_jacobian, jacobian_fwd
-    from pyjac_tpu.testers.synthetic import random_states
+    from pyjac_jax.core.mech import Mechanism
+    from pyjac_jax.core.pack import pack
+    from pyjac_jax.ops.jacobian import eval_jacobian, jacobian_fwd
+    from pyjac_jax.testers.synthetic import random_states
 
     _, specs, _ = pair[0]
     th = {s.name: _TH.format(lo=_coeffs(s.lo), hi=_coeffs(s.hi))

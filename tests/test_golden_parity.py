@@ -17,11 +17,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyjac_tpu.core.mech import Mechanism
-from pyjac_tpu.core.pack import pack
-from pyjac_tpu.ops import rates, thermo
-from pyjac_tpu.ops.dydt import dydt_conp
-from pyjac_tpu.ops.jacobian import eval_jacobian
+from pyjac_jax.core.mech import Mechanism
+from pyjac_jax.core.pack import pack
+from pyjac_jax.ops import rates, thermo
+from pyjac_jax.ops.dydt import dydt_conp
+from pyjac_jax.ops.jacobian import eval_jacobian
 
 GOLDEN = pathlib.Path(__file__).parent / 'data' / 'golden_h2o2_refc.npz'
 
@@ -110,7 +110,7 @@ def test_conv_dydt_golden(h2o2_inp):
     """
     import jax.numpy as jnp
 
-    from pyjac_tpu.ops.dydt import dydt_conv
+    from pyjac_jax.ops.dydt import dydt_conv
     g = np.load(GOLDEN.parent / 'golden_h2o2_refc_conv.npz')
     mech = Mechanism.from_files(h2o2_inp)
     packed = pack(mech)
@@ -121,23 +121,6 @@ def test_conv_dydt_golden(h2o2_inp):
                        np.abs(ref).max(-1, keepdims=True) * 1e-6 + 1e-300)
     err = (np.abs(f - ref) / denom).max()
     assert err < 1e-8, 'CONV dydt error %.3e' % err
-
-
-def test_pallas_kernel_vs_reference_c(golden, h2o2_inp):
-    """The f32 Pallas kernel against the reference's f64 generated C:
-    agreement at f32 roundoff relative to per-state Jacobian scale."""
-    from pyjac_tpu.ops.pallas_jacobian import PallasJacobian
-    mech = Mechanism.from_files(h2o2_inp)
-    packed = pack(mech)
-    pj = PallasJacobian(packed, interpret=True)
-    J, f = pj(golden['y'], golden['P'])
-    n = len(golden['T'])
-    J = np.asarray(J, dtype=np.float64).transpose(0, 2, 1).reshape(n, -1)
-    ref = golden['ref_jac']
-    scale = np.abs(ref).max(axis=-1, keepdims=True)
-    err = (np.abs(J - ref) / np.maximum(np.abs(ref),
-                                        1e-3 * scale)).max()
-    assert err < 1e-3, 'pallas vs reference C: %.3e' % err
 
 
 class TestAllFeaturesGolden:
@@ -152,7 +135,7 @@ class TestAllFeaturesGolden:
 
     @pytest.fixture(scope='class')
     def case(self, tmp_path_factory):
-        from pyjac_tpu.testers.synthetic import synthetic_mechanism
+        from pyjac_jax.testers.synthetic import synthetic_mechanism
         path = tmp_path_factory.mktemp('synth') / 'synth.inp'
         path.write_text(synthetic_mechanism(n_species=9, n_reactions=24,
                                             seed=7))
@@ -168,8 +151,8 @@ class TestAllFeaturesGolden:
     def test_parity(self, case):
         import jax.numpy as jnp
 
-        from pyjac_tpu.ops import rates, thermo
-        from pyjac_tpu.ops.dydt import dydt_conp
+        from pyjac_jax.ops import rates, thermo
+        from pyjac_jax.ops.dydt import dydt_conp
         mech, packed, g = case
         T = jnp.asarray(g['T'])
         P = jnp.asarray(g['P'])
@@ -224,7 +207,7 @@ class TestFlagshipGolden:
 
     @pytest.fixture(scope='class')
     def case(self, tmp_path_factory):
-        from pyjac_tpu.testers.synthetic import plausible_mechanism
+        from pyjac_jax.testers.synthetic import plausible_mechanism
         path = tmp_path_factory.mktemp('flag') / 'flagship.inp'
         path.write_text(plausible_mechanism(n_species=53,
                                             n_reactions=325, seed=42))
@@ -273,28 +256,66 @@ class TestFlagshipGolden:
                    np.abs(b).max(-1)).max()
             assert err < 1e-7, '%s norm-rel: %.3e' % (name, err)
 
-    def test_dd_sparse_vs_reference_c(self, case):
-        """The HEADLINE kernel's math (compressed-column double-float,
-        jacobian_dd_xla_sparse == the Pallas pipeline's trace) against
-        reference C: the BASELINE 1e-8 accuracy bar, no longer
-        self-referential. Eager (unjitted) per the barriered-dd compile
-        pathology (CLAUDE.md round 4)."""
-        from pyjac_tpu.ops.pallas_dd import jacobian_dd_xla_sparse
-        _, packed, g = case
-        n = 64  # eager dd at 53 sp costs ~9 s; half the golden suffices
-        Jdd, fdd = jacobian_dd_xla_sparse(packed, np.asarray(g['P'][:n]),
-                                          np.asarray(g['y'][:n]),
-                                          n_dyn=10)
-        Jl = np.asarray(Jdd).transpose(0, 2, 1).reshape(n, -1)
-        ref = g['ref_jac'][:n]
-        denom = np.maximum(np.abs(ref),
-                           np.abs(ref).max(-1, keepdims=True) * 1e-10 +
-                           1e-300)
-        err = (np.abs(Jl - ref) / denom).max()
-        assert err < 1e-8, 'dd sparse vs flagship reference C: %.3e' % err
-        nrm = (np.abs(Jl - ref).max(-1) / np.abs(ref).max(-1)).max()
-        assert nrm < 1e-11, 'dd sparse norm-rel: %.3e' % nrm
-        fr = g['ref_dydt'][:n]
-        fe = (np.abs(np.asarray(fdd) - fr).max(-1) /
-              np.abs(fr).max(-1)).max()
-        assert fe < 1e-6, 'dd sparse dydt norm-rel: %.3e' % fe
+    def test_f64_parity_conv(self, case):
+        """CONV on the golden's states, each at its own density. The
+        reference C is CONP-only for the Jacobian, so: concentrations,
+        rates, pres-mod and species rates (the same thermochemical state)
+        and the species rows of dy/dt match the reference C; the CONV
+        temperature row matches the independent NumPy oracle; the CONV
+        Jacobian matches forward-mode AD."""
+        from pyjac_jax.ops.dydt import dydt_conv
+        from pyjac_jax.ops.jacobian import jacobian_fwd
+        from pyjac_jax.testers import numpy_oracle
+        mech, packed, g = case
+        T = jnp.asarray(g['T'])
+        y = jnp.asarray(g['y'])
+        _, _, rho, _ = thermo.eval_conc(packed, T, jnp.asarray(g['P']),
+                                        y[:, 1:])
+        _, _, pres, conc = thermo.eval_conc_rho(packed, T, rho, y[:, 1:])
+        np.testing.assert_allclose(np.asarray(pres), g['P'], rtol=1e-14)
+        fwd, rev = rates.eval_rxn_rates(packed, T, pres, conc)
+        pm = rates.get_rxn_pres_mod(packed, T, pres, conc)
+        w = rates.eval_spec_rates(packed, fwd, rev, pm)
+        f = np.asarray(dydt_conv(packed, 0.0, rho, y))
+        J, f2 = eval_jacobian(packed, 0.0, rho, y, conp=False,
+                              return_dydt=True)
+        # the fused dy/dt sums in another order than dydt_conv; near
+        # equilibrium only the norm-relative difference is meaningful
+        assert (np.abs(np.asarray(f2) - f).max(-1) /
+                np.abs(f).max(-1)).max() < 1e-9
+        checks = [
+            ('conc', np.asarray(conc), g['ref_conc']),
+            ('fwd', np.asarray(fwd), g['ref_fwd']),
+            ('rev', np.asarray(rates.compact_rev(packed, rev)),
+             g['ref_rev']),
+            ('pres_mod', np.asarray(rates.compact_pres_mod(packed, pm)),
+             g['ref_pres_mod']),
+        ]
+        for name, a, b in checks:
+            denom = np.maximum(
+                np.abs(b), np.abs(b).max(-1, keepdims=True) * 1e-12 +
+                1e-300)
+            err = (np.abs(a - b) / denom).max()
+            assert err < 1e-12, '%s: %.3e' % (name, err)
+        for name, a, b in [('spec_rates', np.asarray(w),
+                            g['ref_spec_rates']),
+                           ('dydt species rows', f[:, 1:],
+                            g['ref_dydt'][:, 1:])]:
+            err = (np.abs(a - b).max(-1) / np.abs(b).max(-1)).max()
+            assert err < 1e-7, '%s norm-rel: %.3e' % (name, err)
+        rho_np = np.asarray(rho)
+        for i in (0, 41, 127):
+            o = numpy_oracle.evaluate_conv(mech, float(g['T'][i]),
+                                           float(rho_np[i]), g['y'][i, 1:])
+            assert abs(f[i, 0] - o['dydt'][0]) <= \
+                1e-7 * np.abs(o['dydt']).max(), 'dT/dt state %d' % i
+        sel = slice(0, 128, 8)
+        J_ad = np.asarray(jacobian_fwd(packed, 0.0, rho[sel], y[sel],
+                                       conp=False))
+        Js = np.asarray(J)[sel]
+        denom = np.maximum(np.abs(J_ad),
+                           np.abs(J_ad).reshape(16, -1).max(-1)[:, None,
+                                                                None]
+                           * 1e-10 + 1e-300)
+        err = (np.abs(Js - J_ad) / denom).max()
+        assert err < 1e-8, 'CONV J vs forward AD: %.3e' % err

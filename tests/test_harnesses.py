@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from pyjac_tpu.testers import pasr
-from pyjac_tpu.testers.functional import fd_jacobian
-from pyjac_tpu.testers.performance import (check_step_file,
+from pyjac_jax.testers import pasr
+from pyjac_jax.testers.functional import fd_jacobian
+from pyjac_jax.testers.performance import (check_step_file,
                                            find_mechanisms, pack_data_bin,
                                            performance_tester, step_sizes)
 
@@ -17,14 +17,15 @@ def test_step_sizes():
     assert step_sizes(256, minimum=256) == [256]
 
 
-def test_pack_data_bin(tmp_path, pasr_states):
+def test_pack_data_bin(tmp_path, small_rows):
+    rows = small_rows[:7]
     src = tmp_path / 'states.npy'
-    np.save(src, pasr_states[:7])
+    np.save(src, rows)
     out = tmp_path / 'data.bin'
     n = pack_data_bin(str(src), str(out))
     assert n == 7
     raw = np.fromfile(out, dtype='<f8').reshape(7, -1)
-    np.testing.assert_array_equal(raw, pasr_states[:7])
+    np.testing.assert_array_equal(raw, rows)
 
 
 def test_check_step_file(tmp_path):
@@ -34,21 +35,21 @@ def test_check_step_file(tmp_path):
     assert done == {256: 2, 512: 1}
 
 
-def test_performance_tester_end_to_end(tmp_path, h2o2_cti, pasr_states):
+def test_performance_tester_end_to_end(tmp_path, small_rows):
     """Full sweep on a tiny work dir, then resume skips everything."""
+    from pyjac_jax.testers.synthetic import plausible_mechanism
     work = tmp_path / 'work'
-    sub = work / 'h2o2'
+    sub = work / 'small'
     os.makedirs(sub)
-    import shutil
-    shutil.copy(h2o2_cti, sub / 'h2o2.cti')
-    np.save(sub / 'states.npy', pasr_states[:64])
+    (sub / 'small.inp').write_text(plausible_mechanism(12, 30, seed=2))
+    np.save(sub / 'states.npy', small_rows[:64])
 
     found = list(find_mechanisms(str(work)))
-    assert len(found) == 1 and found[0][0] == 'h2o2'
+    assert len(found) == 1 and found[0][0] == 'small'
 
     performance_tester(str(work), methods=['ajac'], dtypes=['f64'],
                        repeats=2, steps=[16, 32], verbose=False)
-    out = work / 'output' / 'h2o2_ajac_f64_output.txt'
+    out = work / 'output' / 'small_ajac_f64_output.txt'
     lines = out.read_text().strip().splitlines()
     assert len(lines) == 4          # 2 sizes x 2 repeats
     assert (sub / 'data.bin').exists()
@@ -63,55 +64,20 @@ def test_performance_tester_end_to_end(tmp_path, h2o2_cti, pasr_states):
     assert len(out.read_text().strip().splitlines()) == 4
 
 
-def test_performance_tester_dd_methods(tmp_path):
-    """The parity-precision methods sweep through the reference-style
-    harness (option matrix, resume, ``num_odes,runtime_ms`` lines) —
-    round-3 verdict weak #6: the headline dd kernels must be sweepable,
-    not only reachable via bench.py.  A small synthetic mechanism keeps
-    the CPU dd compiles CI-practical (h2o2-scale barriered dd graphs
-    take >8 min each on XLA:CPU); the h2o2-fixture dd numerics are
-    covered by tests/test_pallas_dd.py."""
-    from pyjac_tpu.core.mech import Mechanism
-    from pyjac_tpu.testers.synthetic import (random_states,
-                                             synthetic_mechanism)
-    work = tmp_path / 'work'
-    sub = work / 'synth'
-    os.makedirs(sub)
-    (sub / 'm.inp').write_text(synthetic_mechanism(
-        n_species=6, n_reactions=10, seed=7, gri_mix=True))
-    mech = Mechanism.from_files(str(sub / 'm.inp'))
-    y, T, P = random_states(mech, 16, seed=1)
-    # PaSR-layout rows (t, T, P, Y_full) in the mechanism's own order
-    Yfull = np.concatenate([y[:, 1:], 1.0 - y[:, 1:].sum(1)[:, None]], 1)
-    inv = np.argsort(mech.fwd_spec_mapping)
-    rows = np.concatenate([np.zeros((16, 1)), y[:, :1], P[:, None],
-                           Yfull[:, inv]], axis=1)
-    np.save(sub / 'states.npy', rows)
-
-    performance_tester(str(work), methods=['dd', 'dd-sparse'],
-                       dtypes=['f64'], repeats=1, steps=[8],
-                       verbose=False)
-    for method in ('dd', 'dd-sparse'):
-        out = work / 'output' / ('synth_%s_f64_output.txt' % method)
-        lines = out.read_text().strip().splitlines()
-        assert len(lines) == 1
-        n, ms = lines[0].split(',')
-        assert int(n) == 8 and float(ms) > 0
-
-
-def test_fd_jacobian_orders(h2o2_packed, h2o2_states):
-    """Higher-order FD converges toward the analytical Jacobian."""
+def test_fd_jacobian_orders(flagship, flagship_states):
+    """Higher-order FD converges toward the analytical Jacobian on PaSR
+    states of the flagship mechanism."""
     import jax.numpy as jnp
 
-    from pyjac_tpu.ops.jacobian import eval_jacobian
-    st = h2o2_states
-    y = st['y'][100:104]
-    P = st['P'][100:104]
-    J = np.asarray(eval_jacobian(h2o2_packed, 0.0, jnp.asarray(P),
+    from pyjac_jax.ops.jacobian import eval_jacobian
+    _, packed = flagship
+    y = flagship_states['y'][1000:1004]
+    P = flagship_states['P'][1000:1004]
+    J = np.asarray(eval_jacobian(packed, 0.0, jnp.asarray(P),
                                  jnp.asarray(y)))
     err = {}
     for order in (1, 6):
-        J_fd = fd_jacobian(h2o2_packed, 0.0, P, y, order=order)
+        J_fd = fd_jacobian(packed, 0.0, P, y, order=order)
         err[order] = (np.linalg.norm(J - J_fd) / np.linalg.norm(J))
     assert err[6] < err[1]
     assert err[6] < 1e-5
@@ -193,7 +159,7 @@ def test_pasr_statistics_match_reference_fixture(h2o2_mech):
 
 
 def test_pasr_cli_main(h2o2_cti, tmp_path):
-    """python -m pyjac_tpu.testers.pasr end to end with a YAML input."""
+    """python -m pyjac_jax.testers.pasr end to end with a YAML input."""
     yaml_text = """case: premixed
 temperature: 300.0
 pressure: 1.0
@@ -215,7 +181,7 @@ number of residence times: 1
     ypath = tmp_path / 'pasr.yaml'
     ypath.write_text(yaml_text)
     out = tmp_path / 'out.npy'
-    from pyjac_tpu.testers.pasr import main as pasr_main
+    from pyjac_jax.testers.pasr import main as pasr_main
     rc = pasr_main(['-i', h2o2_cti, '-y', str(ypath), '-o', str(out),
                     '--seed', '0'])
     assert rc == 0
@@ -228,14 +194,14 @@ def test_checksum_reduces_every_element():
     XLA dead-code-eliminate the rest and fake throughput (ADVICE r1)."""
     import jax.numpy as jnp
 
-    from pyjac_tpu.testers.performance import _checksum
+    from pyjac_jax.testers.performance import _checksum
     a = jnp.arange(1000, dtype=jnp.float64)
     b = jnp.ones((33, 7), dtype=jnp.float64)
     total = float(_checksum((a, b)))
     assert total == float(jnp.sum(a)) + 33 * 7
 
 
-def test_timed_eval_matches_bench_methodology(h2o2_packed, h2o2_states):
+def test_timed_eval_matches_bench_methodology(small_packed, small_states):
     """ajac timing must report a throughput consistent (within 4x) with
     an independently-timed full-sum jitted step on the same batch."""
     import time
@@ -243,16 +209,16 @@ def test_timed_eval_matches_bench_methodology(h2o2_packed, h2o2_states):
     import jax
     import jax.numpy as jnp
 
-    from pyjac_tpu.ops.jacobian import jacobian_and_dydt
-    from pyjac_tpu.testers.performance import _timed_eval
+    from pyjac_jax.ops.jacobian import jacobian_and_dydt
+    from pyjac_jax.testers.performance import _timed_eval
 
-    st = h2o2_states
-    y, P = st['y'][:512], st['P'][:512]
-    ms = _timed_eval(h2o2_packed, 'ajac', y, P, 'f64')
+    st = small_states
+    y, P = st['y'], st['P']
+    ms = _timed_eval(small_packed, 'ajac', y, P, 'f64')
 
     @jax.jit
     def step(p, yy):
-        J, f = jacobian_and_dydt(h2o2_packed, 0.0, p, yy)
+        J, f = jacobian_and_dydt(small_packed, 0.0, p, yy)
         return jnp.sum(J) + jnp.sum(f)
 
     Pj, yj = jnp.asarray(P), jnp.asarray(y)
@@ -268,13 +234,17 @@ def _time_one(step, Pj, yj):
     return time.perf_counter() - t0
 
 
-def test_functional_tester_triage_hooks(h2o2_cti, tmp_path):
+def test_functional_tester_triage_hooks(tmp_path):
     """--only_reaction strips the mechanism; --condition_numbers selects
     states (reference: functional_tester/test.py:1139-1144, :1260-1262)."""
-    from pyjac_tpu.core.mech import Mechanism
-    from pyjac_tpu.testers.__main__ import main as ft_main
+    from pyjac_jax.core.mech import Mechanism
+    from pyjac_jax.testers.__main__ import main as ft_main
+    from pyjac_jax.testers.synthetic import plausible_mechanism
 
-    mech = Mechanism.from_files(h2o2_cti)
+    mech_path = str(tmp_path / 'small.inp')
+    with open(mech_path, 'w') as fh:
+        fh.write(plausible_mechanism(12, 30, seed=2))
+    mech = Mechanism.from_files(mech_path)
     sub = mech.restrict_reactions([0, 2, 5])
     assert sub.n_reactions == 3
     assert sub.reacs[1] is mech.reacs[2]
@@ -284,7 +254,7 @@ def test_functional_tester_triage_hooks(h2o2_cti, tmp_path):
         mech.restrict_reactions([999])
 
     out = tmp_path / 'err.npz'
-    rc = ft_main(['-i', h2o2_cti, '-n', '4',
+    rc = ft_main(['-i', mech_path, '-n', '4',
                   '--only_reaction', '0,1,2,3',
                   '--condition_numbers', '0,2',
                   '-o', str(out), '--fail-above', '1e-6'])

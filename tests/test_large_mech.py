@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyjac_tpu.core.mech import Mechanism
-from pyjac_tpu.core.pack import pack
-from pyjac_tpu.ops.jacobian import eval_jacobian, jacobian_fwd
-from pyjac_tpu.ops.sparse import structural_sparsity
-from pyjac_tpu.testers.synthetic import random_states, synthetic_mechanism
+from pyjac_jax.core.mech import Mechanism
+from pyjac_jax.core.pack import pack
+from pyjac_jax.ops.jacobian import eval_jacobian, jacobian_fwd
+from pyjac_jax.ops.sparse import structural_sparsity
+from pyjac_jax.testers.synthetic import random_states, synthetic_mechanism
 
 
 def _build(n_species, n_reactions, seed=5):
@@ -50,7 +50,7 @@ def test_nheptane_scale_jacobian():
 
 
 def test_batch_evaluator_chunks_scale_with_mechanism():
-    from pyjac_tpu.parallel.mesh import BatchEvaluator, make_mesh
+    from pyjac_jax.parallel.mesh import BatchEvaluator, make_mesh
     mech, packed = _build(111, 784)
     ev = BatchEvaluator(packed, make_mesh(1))
     # 2 GB budget over (R x N x 8B) per state

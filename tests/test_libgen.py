@@ -1,35 +1,34 @@
 """AOT library export/load tests (the libgen analog)."""
 
 import json
-import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyjac_tpu.libgen import generate_library, load_library
-from pyjac_tpu.ops.jacobian import jacobian_and_dydt
+from pyjac_jax.libgen import generate_library, load_library
+from pyjac_jax.ops.jacobian import jacobian_and_dydt
 
 
-def test_generate_and_load(h2o2_packed, h2o2_states, tmp_path):
+def test_generate_and_load(small_packed, small_states, tmp_path):
     out = str(tmp_path / 'lib')
-    man = generate_library(h2o2_packed, out,
-                           kernels=('dydt', 'jacobian_and_dydt'))
+    man = generate_library(small_packed, out,
+                           kernels=('dydt', 'jacobian_and_dydt'),
+                           platforms=('cpu',))
     manifest = json.load(open(man))
-    assert manifest['n_species'] == 10
+    assert manifest['n_species'] == small_packed.n_species
     assert set(manifest['kernels']) == {'dydt', 'jacobian_and_dydt'}
 
     lib = load_library(out)
-    st = h2o2_states
+    st = small_states
     # symbolic batch: exercise two different batch sizes from ONE
-    # artifact; skip the leading equilibrated pilot states (their net
-    # rates are pure cancellation noise)
+    # artifact
     for B in (5, 17):
-        sel = np.linspace(100, len(st['T']) - 1, B).astype(int)
+        sel = np.linspace(0, len(st['T']) - 1, B).astype(int)
         y = jnp.asarray(st['y'][sel])
         P = jnp.asarray(st['P'][sel])
         J, f = lib['jacobian_and_dydt'](P, y)
-        J_ref, f_ref = jacobian_and_dydt(h2o2_packed, 0.0, P, y)
+        J_ref, f_ref = jacobian_and_dydt(small_packed, 0.0, P, y)
         scale = float(jnp.abs(J_ref).max())
         np.testing.assert_allclose(np.asarray(J) / scale,
                                    np.asarray(J_ref) / scale, atol=1e-12)
@@ -39,62 +38,56 @@ def test_generate_and_load(h2o2_packed, h2o2_states, tmp_path):
                                    np.asarray(f_ref) / fscale, atol=1e-12)
 
 
-def test_conv_rates_kernel(h2o2_packed, h2o2_states, tmp_path):
+def test_conv_rates_kernel(small_packed, small_states, tmp_path):
     """CONV 'rates' artifact must treat its param as density, not
     pressure (recovering P from rho via the gas law)."""
-    from pyjac_tpu.ops.rates import eval_rxn_rates, get_rxn_pres_mod
-    from pyjac_tpu.ops.thermo import eval_conc, eval_conc_rho
+    from pyjac_jax.ops.rates import eval_rxn_rates, get_rxn_pres_mod
+    from pyjac_jax.ops.thermo import eval_conc, eval_conc_rho
 
     out = str(tmp_path / 'libconv')
-    generate_library(h2o2_packed, out, kernels=('rates',), conp=False)
+    generate_library(small_packed, out, kernels=('rates',), conp=False,
+                     platforms=('cpu',))
     lib = load_library(out)
     assert lib['manifest']['param'].startswith('density')
 
-    st = h2o2_states
-    sel = np.linspace(100, len(st['T']) - 1, 9).astype(int)
+    st = small_states
+    sel = np.linspace(0, len(st['T']) - 1, 9).astype(int)
     T = jnp.asarray(st['T'][sel])
     P = jnp.asarray(st['P'][sel])
     Y = jnp.asarray(st['Y_full'][sel, :-1])
-    _, _, rho, _ = eval_conc(h2o2_packed, T, P, Y)
+    _, _, rho, _ = eval_conc(small_packed, T, P, Y)
     y = jnp.asarray(st['y'][sel])
 
     fwd, rev, pm = lib['rates'](rho, y)
-    _, _, pres, conc = eval_conc_rho(h2o2_packed, T, rho, Y)
-    fwd_ref, rev_ref = eval_rxn_rates(h2o2_packed, T, pres, conc)
-    pm_ref = get_rxn_pres_mod(h2o2_packed, T, pres, conc)
+    _, _, pres, conc = eval_conc_rho(small_packed, T, rho, Y)
+    fwd_ref, rev_ref = eval_rxn_rates(small_packed, T, pres, conc)
+    pm_ref = get_rxn_pres_mod(small_packed, T, pres, conc)
     for a, b in ((fwd, fwd_ref), (rev, rev_ref), (pm, pm_ref)):
         scale = float(jnp.abs(b).max()) + 1e-300
         np.testing.assert_allclose(np.asarray(a) / scale,
                                    np.asarray(b) / scale, atol=1e-12)
 
 
-def test_generate_and_load_dd_sparse_kernel(h2o2_packed, tmp_path):
-    """The flagship fused-gather sparse pipeline exports/loads as an
-    artifact too (round-3 verdict missing #3: the bench default must be
-    shippable, reference libgen.py:322-411 compiles everything it
-    generates). Cross-lowered on any host; executed + matched against
-    the live kernel on-chip (see the verify skill)."""
-    from pyjac_tpu.libgen import generate_library, load_library
+def test_export_for_cpu_and_gpu(small_packed, tmp_path):
+    """One artifact lowered for the CPU and for the GPU ('cuda', JAX's
+    export platform name for an NVIDIA card) from a CPU-only host."""
+    from jax import export
+
     out = tmp_path / 'lib'
-    generate_library(h2o2_packed, str(out),
-                     kernels=('jacobian_dd_sparse',))
+    generate_library(small_packed, str(out), kernels=('jacobian',),
+                     platforms=('cpu', 'cuda'))
+    with open(out / 'jacobian_conp.jaxexport', 'rb') as fh:
+        exp = export.deserialize(fh.read())
+    assert exp.platforms == ('cpu', 'cuda')
     lib = load_library(str(out))
-    assert 'jacobian_dd_sparse' in lib
-    man = lib['manifest']
-    assert man['dd_sparse_batch_multiple'] >= man['dd_sparse_block_b']
-    assert man['dd_sparse_n_cols_pad'] >= h2o2_packed.n_species - 1
-    assert 'J_cols' in man['dd_sparse_layout']
+    y = jnp.ones((3, small_packed.n_species)) * 0.05
+    y = y.at[:, 0].set(1500.0)
+    J = lib['jacobian'](jnp.full((3,), 1e5), y)
+    assert J.shape == (3, small_packed.n_species, small_packed.n_species)
+    assert np.isfinite(np.asarray(J)).all()
 
 
-def test_generate_and_load_dd_kernel(h2o2_packed, tmp_path):
-    """The double-float Pallas kernel exports as a TPU StableHLO
-    artifact (cross-lowered from any host; execution is TPU-only —
-    validated on-chip at 7.2e-10 golden parity, docs/performance.md).
-    Symbolic batch in multiples of the VMEM tile."""
-    from pyjac_tpu.libgen import generate_library, load_library
-    out = tmp_path / 'lib'
-    generate_library(h2o2_packed, str(out), kernels=('jacobian_dd',))
-    lib = load_library(str(out))
-    assert 'jacobian_dd' in lib
-    assert lib['manifest']['dd_block_b'] >= 128
-    assert 'dd_layout' in lib['manifest']
+def test_unknown_kernel_rejected(small_packed, tmp_path):
+    with pytest.raises(ValueError, match='unknown kernel'):
+        generate_library(small_packed, str(tmp_path / 'lib'),
+                         kernels=('jacobian_sparse',))

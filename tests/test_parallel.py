@@ -1,9 +1,9 @@
-"""Multi-chip (virtual 8-device CPU mesh) sharding tests.
+"""Multi-device (virtual 8-device CPU mesh) sharding tests.
 
 Validates that the sharded step compiles and executes over a
-jax.sharding.Mesh with the batch axis partitioned, that chunked
-BatchEvaluator results match the direct kernels, and that the driver
-entry points work.
+jax.sharding.Mesh with the batch axis partitioned on 1-8 devices, that
+chunked BatchEvaluator results match the direct kernels whatever the
+padding and chunk boundaries, and that the driver entry points work.
 """
 
 import jax
@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyjac_tpu.ops.jacobian import eval_jacobian
-from pyjac_tpu.parallel.mesh import (BatchEvaluator, batch_sharding,
+from pyjac_jax.ops.jacobian import eval_jacobian, jacobian_and_dydt
+from pyjac_jax.parallel.mesh import (BatchEvaluator, batch_sharding,
                                      make_mesh, pad_batch, sharded_step)
 
 
@@ -29,39 +29,87 @@ def test_mesh_creation():
     assert mesh4.devices.size == 4
 
 
-def test_sharded_step_matches_direct(h2o2_packed, h2o2_states):
-    st = h2o2_states
-    B = 64                                  # divisible by 8
+@pytest.mark.parametrize('n_devices', [1, 2, 4, 8])
+def test_sharded_step_matches_direct(small_packed, small_states, n_devices):
+    st = small_states
+    B = 64                                  # divisible by every mesh size
     y = jnp.asarray(st['y'][:B])
     P = jnp.asarray(st['P'][:B])
-    mesh = make_mesh()
-    step = sharded_step(h2o2_packed, mesh, conp=True)
+    mesh = make_mesh(n_devices)
+    step = sharded_step(small_packed, mesh, conp=True)
     J, f, norm = step(y, P)
-    assert J.shape == (B, 10, 10)
-    # sharding metadata: leading axis split over 8 devices
+    N = small_packed.n_species
+    assert J.shape == (B, N, N) and f.shape == (B, N)
+    # leading axis split over the mesh: one equal shard per device
     assert J.sharding.is_equivalent_to(batch_sharding(mesh), ndim=3)
-    J_direct = eval_jacobian(h2o2_packed, 0.0, P, y, conp=True)
+    shards = J.addressable_shards
+    assert len({s.device for s in shards}) == n_devices
+    assert all(s.data.shape[0] == B // n_devices for s in shards)
+    J_direct, f_direct = jacobian_and_dydt(small_packed, 0.0, P, y)
     scale = float(jnp.abs(J_direct).max())
     np.testing.assert_allclose(np.asarray(J) / scale,
                                np.asarray(J_direct) / scale, atol=1e-12)
-    assert np.isfinite(float(norm))
+    fscale = float(jnp.abs(f_direct).max())
+    np.testing.assert_allclose(np.asarray(f) / fscale,
+                               np.asarray(f_direct) / fscale, atol=1e-12)
+    expect = float(jnp.abs(J_direct).max() + jnp.abs(f_direct).max())
+    assert float(norm) == pytest.approx(expect, rel=1e-12)
 
 
-def test_batch_evaluator_chunked(h2o2_packed, h2o2_states):
-    st = h2o2_states
-    y = st['y'][:100]                       # not divisible by 8 on purpose
-    P = st['P'][:100]
-    ev = BatchEvaluator(h2o2_packed, make_mesh(), chunk_size=32)
+@pytest.mark.parametrize('n,chunk,n_devices', [
+    (100, 32, 8),       # not divisible by the device count
+    (128, 32, 8),       # whole number of chunks, no padding
+    (129, 64, 4),       # one state past a chunk boundary
+    (5, 32, 8),         # fewer states than devices
+    (64, 1000, 2),      # one chunk smaller than chunk_size
+    (37, 16, 1),        # single device, ragged tail
+])
+def test_batch_evaluator_chunked(small_packed, small_states, n, chunk,
+                                 n_devices):
+    st = small_states
+    y = st['y'][:n]
+    P = st['P'][:n]
+    N = small_packed.n_species
+    ev = BatchEvaluator(small_packed, make_mesh(n_devices), chunk_size=chunk)
+    assert ev.chunk_size % n_devices == 0
     J, f = ev.jacobian(y, P)
-    assert J.shape == (100, 10, 10) and f.shape == (100, 10)
-    J_direct = np.asarray(eval_jacobian(
-        h2o2_packed, 0.0, jnp.asarray(P), jnp.asarray(y), conp=True))
+    assert J.shape == (n, N, N) and f.shape == (n, N)
+    # the padded tail chunk has the same shape: one compile per call
+    assert ev._jac._cache_size() == 1
+    J_direct, f_direct = jacobian_and_dydt(small_packed, 0.0,
+                                           jnp.asarray(P), jnp.asarray(y))
+    scale = float(jnp.abs(J_direct).max())
+    np.testing.assert_allclose(J / scale, np.asarray(J_direct) / scale,
+                               atol=1e-12)
+    fscale = float(jnp.abs(f_direct).max())
+    np.testing.assert_allclose(f / fscale, np.asarray(f_direct) / fscale,
+                               atol=1e-12)
+    f2 = ev.dydt(y, P)
+    assert f2.shape == (n, N)
+    np.testing.assert_allclose(f2 / fscale, f / fscale, atol=1e-12)
+
+
+def test_batch_evaluator_conv_scalar_param(small_packed, small_states):
+    """CONV with one density for the whole batch (a broadcast scalar)."""
+    y = small_states['y'][:20]
+    rho = 1.7
+    ev = BatchEvaluator(small_packed, make_mesh(4), conp=False,
+                        chunk_size=8)
+    J, f = ev.jacobian(y, rho)
+    J_direct = np.asarray(eval_jacobian(small_packed, 0.0, rho,
+                                        jnp.asarray(y), conp=False))
     scale = np.abs(J_direct).max()
     np.testing.assert_allclose(J / scale, J_direct / scale, atol=1e-12)
-    f2 = ev.dydt(y, P)
-    assert f2.shape == (100, 10)
-    fscale = np.abs(f).max()
-    np.testing.assert_allclose(f2 / fscale, f / fscale, atol=1e-12)
+
+
+def test_default_chunk_fits_budget(small_packed):
+    """The default chunk bounds the (chunk, R, N) f64 tensors to ~2 GB
+    per device and stays a multiple of the device count."""
+    ev = BatchEvaluator(small_packed, make_mesh(8))
+    R, N = small_packed.n_reactions, small_packed.n_species
+    per_device = ev.chunk_size // 8
+    assert ev.chunk_size % 8 == 0
+    assert per_device == min(int(2e9 / (R * N * 8)), 32768)
 
 
 def test_graft_entry_dryrun():
@@ -73,179 +121,3 @@ def test_graft_entry_dryrun():
     J, f = jax.jit(fn)(*args)
     assert J.shape == (64, 53, 53)
     dryrun_multichip(8)
-
-
-def test_batch_evaluator_pallas(h2o2_packed, h2o2_states):
-    """Pallas path through the sharded evaluator (interpret off; runs
-    the kernel via pallas_call CPU lowering in interpret-free mode is
-    TPU-only, so force interpret here via the instance)."""
-    from pyjac_tpu.ops.pallas_jacobian import PallasJacobian
-    st = h2o2_states
-    y = st['y'][:64]
-    P = st['P'][:64]
-    pj = PallasJacobian(h2o2_packed, interpret=True)
-    J, f = pj(y, P)
-    ev = BatchEvaluator(h2o2_packed, make_mesh(1), chunk_size=64)
-    J_ref, f_ref = ev.jacobian(y, P)
-    scale = np.abs(J_ref).max()
-    assert np.abs(np.asarray(J, dtype=np.float64) -
-                  J_ref).max() / scale < 2e-5
-
-
-def test_jacobian_dd_resident_chunking(h2o2_packed, h2o2_states,
-                                       monkeypatch):
-    """The device-resident chunk loop covers every state exactly once
-    (padding included), its dynamic-slice chunking matches a direct
-    whole-array evaluation, and the stats record the loop shape.
-    The dd Pallas kernel itself is TPU-only, so a shape-preserving
-    fake kernel stands in (the loop logic is what's under test)."""
-
-    class _FakeDD:
-        block_b = 8
-        block_b_cols = 16
-
-        def call_tr(self, yh, yl, ph, plo):
-            return (yh * 2.0 + yl, jnp.broadcast_to(ph + plo, yh.shape))
-
-    fake = _FakeDD()
-    monkeypatch.setattr(BatchEvaluator, '_dd_kernel',
-                        lambda self, block_b=0: (fake, None))
-    st = h2o2_states
-    y = st['y'][:100]                      # pads to 128 = 4 chunks of 32
-    P = st['P'][:100]
-    ev = BatchEvaluator(h2o2_packed, make_mesh(1))
-    chk, stats = ev.jacobian_dd_resident(y, P, chunk_b=32)
-    assert stats['states'] == 128
-    assert stats['chunk_b'] == 32
-    assert stats['n_chunks'] == 4
-    assert stats['staging_bytes'] > 0 and stats['staging_s'] >= 0
-
-    # expected checksum: replicate the padding + dd split on the host
-    y64 = np.asarray(y, np.float64)
-    P64 = np.asarray(P, np.float64)
-    y64 = np.concatenate([y64, np.repeat(y64[-1:], 28, 0)])
-    P64 = np.concatenate([P64, np.repeat(P64[-1:], 28)])
-    yh = y64.T.astype(np.float32)
-    yl = (y64.T - yh.astype(np.float64)).astype(np.float32)
-    ph = P64[None].astype(np.float32)
-    plo = (P64[None] - ph.astype(np.float64)).astype(np.float32)
-    expect = float((yh * 2.0 + yl).sum(dtype=np.float64) +
-                   np.broadcast_to(ph + plo, yh.shape)
-                   .sum(dtype=np.float64))
-    assert abs(chk - expect) <= 1e-5 * abs(expect)
-
-
-@pytest.fixture(scope='module')
-def tiny_packed_mech(tmp_path_factory):
-    from pyjac_tpu.core.mech import Mechanism
-    from pyjac_tpu.core.pack import pack
-    from pyjac_tpu.testers.synthetic import tiny_mechanism
-    path = tmp_path_factory.mktemp('tiny') / 'tiny.inp'
-    path.write_text(tiny_mechanism(a5x=3000.0))
-    mech = Mechanism.from_files(str(path))
-    return mech, pack(mech)
-
-
-def test_sharded_dd_matches_unsharded_executed(tiny_packed_mech):
-    """EXECUTED dd sharding equality (round-3 verdict missing #4): the
-    double-float Jacobian under shard_map over a multi-device mesh must
-    match the identical unsharded trace numerically — barriers pin the
-    dd chains, so agreement is ~1e-18 normalized (vs ~2e-8 drift when
-    barrier-free programs re-fuse per shape)."""
-    from pyjac_tpu.ops import doublefloat as df
-    from pyjac_tpu.ops.pallas_dd import jacobian_dd_xla
-    from pyjac_tpu.parallel.mesh import sharded_jacobian_dd_xla
-    from pyjac_tpu.testers.synthetic import random_states
-
-    tmech, tpacked = tiny_packed_mech
-    n_dev = 2                      # smallest real sharding; compile is
-    # the cost here and it is per-program, not per-device
-    mesh = make_mesh(n_dev)
-    step = sharded_jacobian_dd_xla(tpacked, mesh, n_dyn=5,
-                                   fast_trace=True, barriers=True)
-    B = 4 * n_dev
-    y, _, P = random_states(tmech, B, seed=4)
-    y = jnp.asarray(y, jnp.float64)
-    P = jnp.asarray(P, jnp.float64)
-    J, f, norm = step(y, P)
-    assert bool(jnp.isfinite(norm))
-
-    @jax.jit
-    def ref(yy, pp):
-        with df.barrier_mode('xla'):
-            return jacobian_dd_xla(tpacked, pp, yy, conp=True, n_dyn=5,
-                                   fast_trace=True)
-
-    shard = B // n_dev
-    Js, fs = [], []
-    for k in range(n_dev):
-        Jk, fk = ref(y[k * shard:(k + 1) * shard],
-                     P[k * shard:(k + 1) * shard])
-        Js.append(np.asarray(Jk))
-        fs.append(np.asarray(fk))
-    J_ref = np.concatenate(Js)
-    f_ref = np.concatenate(fs)
-    scale = np.abs(J_ref).max()
-    assert np.abs(np.asarray(J) - J_ref).max() / scale < 1e-12
-    fscale = np.abs(f_ref).max()
-    assert np.abs(np.asarray(f) - f_ref).max() / fscale < 1e-12
-
-
-def test_sharded_sparse_dd_matches_unsharded_executed(tiny_packed_mech):
-    """The HEADLINE kernel's math (compressed per-column dd assembly,
-    the fused sparse pipeline's trace) under shard_map: same
-    sharded-vs-unsharded numerical gate as the dense dd test (round-4
-    verdict stretch item 8), and the gate is exact (dJ = 0.0): eager
-    per-op dd results are bit-identical whole-batch or sharded."""
-    from pyjac_tpu.ops import doublefloat as df
-    from pyjac_tpu.ops.pallas_dd import jacobian_dd_xla_sparse
-    from pyjac_tpu.parallel.mesh import sharded_jacobian_dd_xla_sparse
-    from pyjac_tpu.testers.synthetic import random_states
-
-    tmech, tpacked = tiny_packed_mech
-    n_dev = 2
-    mesh = make_mesh(n_dev)
-    # jit=False: the eager/virtual-mesh mode — parts once eagerly,
-    # sparse assembly + norm collective per-op under shard_map (see
-    # sharded_jacobian_dd_xla_sparse for the three measured XLA:CPU
-    # pathologies that force this split)
-    step = sharded_jacobian_dd_xla_sparse(tpacked, mesh, n_dyn=5,
-                                          fast_trace=True,
-                                          barriers=True, jit=False)
-    B = 4 * n_dev
-    y, _, P = random_states(tmech, B, seed=4)
-    y = jnp.asarray(y, jnp.float64)
-    P = jnp.asarray(P, jnp.float64)
-    J, f, norm = step(y, P)
-    assert bool(jnp.isfinite(norm))
-
-    # one full-batch eager pass: dd ops are elementwise in batch, so
-    # eager per-op results are bit-identical whole or sharded
-    with df.barrier_mode('xla'):
-        Jr, fr = jacobian_dd_xla_sparse(tpacked, P, y, conp=True,
-                                        n_dyn=5, fast_trace=True)
-    J_ref = np.asarray(Jr)
-    f_ref = np.asarray(fr)
-    assert np.abs(np.asarray(J) - J_ref).max() / \
-        np.abs(J_ref).max() < 1e-12
-    assert np.abs(np.asarray(f) - f_ref).max() / \
-        np.abs(f_ref).max() < 1e-12
-
-
-def test_sharded_step_dd_traces(h2o2_packed):
-    """Parity-precision multi-chip step: the dd Pallas kernel under
-    jax.shard_map over the batch axis. Executed compiled on a real-chip
-    mesh (finite cross-chip norm, docs/status_round2.md); here we pin
-    the construction + abstract trace on the virtual mesh."""
-    import jax
-
-    from pyjac_tpu.parallel.mesh import make_mesh, sharded_step_dd
-    mesh = make_mesh(1)
-    step, blk = sharded_step_dd(h2o2_packed, mesh)
-    N = h2o2_packed.n_species
-    B = blk * 2
-    sh = jax.ShapeDtypeStruct((N, B), jnp.float32)
-    sp = jax.ShapeDtypeStruct((1, B), jnp.float32)
-    out = jax.eval_shape(step, sh, sh, sp, sp)
-    assert out[0].shape == (N, N, B)
-    assert out[4].shape == ()

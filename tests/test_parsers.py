@@ -8,10 +8,10 @@ two formats agree bit-for-bit on shared content.
 import numpy as np
 import pytest
 
-from pyjac_tpu.core.chemkin import read_mech
-from pyjac_tpu.core.cti import read_mech_cti
-from pyjac_tpu.core.mech import Mechanism, get_species_mappings
-from pyjac_tpu.testers.synthetic import synthetic_mechanism
+from pyjac_jax.core.chemkin import read_mech
+from pyjac_jax.core.cti import read_mech_cti
+from pyjac_jax.core.mech import Mechanism, get_species_mappings
+from pyjac_jax.testers.synthetic import synthetic_mechanism
 
 
 def test_h2o2_inp_counts(h2o2_inp):
@@ -165,7 +165,7 @@ END
 def test_negative_plog_A_rejected(tmp_path):
     """pack() must reject PLOG entries with A < 0: log-interpolating
     |A| would silently flip the rate's sign (ADVICE r1)."""
-    from pyjac_tpu.core.pack import pack as pack_fn
+    from pyjac_jax.core.pack import pack as pack_fn
     text = synthetic_mechanism(n_species=9, n_reactions=14, seed=3)
     text = text.replace('PLOG / 1.0 ', 'PLOG / 1.0 -', 1)
     path = tmp_path / 'negplog.inp'

@@ -1,17 +1,17 @@
 """Rate and dy/dt kernel tests against the independent NumPy oracle,
-on both the H2/O2 fixture and an all-features synthetic mechanism
+on the in-repo 12/30 mechanism and an all-features synthetic mechanism
 (PLOG / Chebyshev / SRI / chemically-activated / fractional nu)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyjac_tpu.core.mech import Mechanism
-from pyjac_tpu.core.pack import pack
-from pyjac_tpu.ops import dydt as dydt_mod
-from pyjac_tpu.ops import rates, thermo
-from pyjac_tpu.testers import numpy_oracle as oracle
-from pyjac_tpu.testers.synthetic import random_states, synthetic_mechanism
+from pyjac_jax.core.mech import Mechanism
+from pyjac_jax.core.pack import pack
+from pyjac_jax.ops import dydt as dydt_mod
+from pyjac_jax.ops import rates, thermo
+from pyjac_jax.testers import numpy_oracle as oracle
+from pyjac_jax.testers.synthetic import random_states, synthetic_mechanism
 
 RTOL = 1e-10
 
@@ -61,9 +61,9 @@ def _compare_states(mech, packed, y, T, P, rtol=RTOL, n_check=25):
                                    err_msg='dydt state %d' % i)
 
 
-def test_h2o2_vs_oracle(h2o2_mech, h2o2_packed, h2o2_states):
-    st = h2o2_states
-    _compare_states(h2o2_mech, h2o2_packed, st['y'], st['T'], st['P'])
+def test_small_vs_oracle(small_mech, small_packed, small_states):
+    st = small_states
+    _compare_states(small_mech, small_packed, st['y'], st['T'], st['P'])
 
 
 def test_synthetic_vs_oracle(synth):
@@ -74,18 +74,18 @@ def test_synthetic_vs_oracle(synth):
     _compare_states(mech, packed, y, T, P, rtol=1e-9, n_check=64)
 
 
-def test_conv_vs_oracle(h2o2_mech, h2o2_packed, h2o2_states):
-    st = h2o2_states
+def test_conv_vs_oracle(small_mech, small_packed, small_states):
+    st = small_states
     T = jnp.asarray(st['T'])
     P = jnp.asarray(st['P'])
     Y = jnp.asarray(st['Y_full'][:, :-1])
-    _, _, rho, _ = thermo.eval_conc(h2o2_packed, T, P, Y)
+    _, _, rho, _ = thermo.eval_conc(small_packed, T, P, Y)
     rho_np = np.asarray(rho)
-    f = dydt_mod.dydt_conv(h2o2_packed, 0.0, rho, jnp.asarray(st['y']))
-    nu_abs = np.abs(np.asarray(h2o2_packed.nu_net))
-    mw = np.asarray(h2o2_packed.mw)
-    for i in (0, 17, 250, 731, 1019):
-        o = oracle.evaluate_conv(h2o2_mech, float(st['T'][i]), rho_np[i],
+    f = dydt_mod.dydt_conv(small_packed, 0.0, rho, jnp.asarray(st['y']))
+    nu_abs = np.abs(np.asarray(small_packed.nu_net))
+    mw = np.asarray(small_packed.mw)
+    for i in (0, 17, 150, 231, 255):
+        o = oracle.evaluate_conv(small_mech, float(st['T'][i]), rho_np[i],
                                  st['Y_full'][i, :-1])
         gross = o['pres_mod'] * (np.abs(o['fwd']) + np.abs(o['rev']))
         fscale = max((gross @ nu_abs * mw).max() / rho_np[i],
@@ -94,55 +94,55 @@ def test_conv_vs_oracle(h2o2_mech, h2o2_packed, h2o2_states):
                                    o['dydt'] / fscale, rtol=0, atol=RTOL)
 
 
-def test_mass_conservation(h2o2_packed, h2o2_states):
+def test_mass_conservation(small_packed, small_states):
     """sum_k W_k omega_k = 0 exactly (up to roundoff) for real mechanisms."""
-    st = h2o2_states
+    st = small_states
     T = jnp.asarray(st['T'])
     P = jnp.asarray(st['P'])
     Y = jnp.asarray(st['Y_full'][:, :-1])
-    _, _, _, conc = thermo.eval_conc(h2o2_packed, T, P, Y)
-    fwd, rev = rates.eval_rxn_rates(h2o2_packed, T, P, conc)
-    pm = rates.get_rxn_pres_mod(h2o2_packed, T, P, conc)
-    wdot = rates.eval_spec_rates(h2o2_packed, fwd, rev, pm)
+    _, _, _, conc = thermo.eval_conc(small_packed, T, P, Y)
+    fwd, rev = rates.eval_rxn_rates(small_packed, T, P, conc)
+    pm = rates.get_rxn_pres_mod(small_packed, T, P, conc)
+    wdot = rates.eval_spec_rates(small_packed, fwd, rev, pm)
     mass = np.asarray(jnp.einsum('bn,n->b', wdot, jnp.asarray(
-        h2o2_packed.mw)))
-    scale = float(jnp.abs(wdot * jnp.asarray(h2o2_packed.mw)).max())
+        small_packed.mw)))
+    scale = float(jnp.abs(wdot * jnp.asarray(small_packed.mw)).max())
     assert np.abs(mass).max() / scale < 1e-12
 
 
-def test_compact_layouts(h2o2_packed, h2o2_states):
-    st = h2o2_states
+def test_compact_layouts(small_packed, small_states):
+    st = small_states
     T = jnp.asarray(st['T'][:4])
     P = jnp.asarray(st['P'][:4])
     Y = jnp.asarray(st['Y_full'][:4, :-1])
-    _, _, _, conc = thermo.eval_conc(h2o2_packed, T, P, Y)
-    fwd, rev = rates.eval_rxn_rates(h2o2_packed, T, P, conc)
-    pm = rates.get_rxn_pres_mod(h2o2_packed, T, P, conc)
-    crev = rates.compact_rev(h2o2_packed, rev)
-    cpm = rates.compact_pres_mod(h2o2_packed, pm)
-    assert crev.shape[-1] == h2o2_packed.n_rev
-    assert cpm.shape[-1] == h2o2_packed.n_pres_mod == 6
+    _, _, _, conc = thermo.eval_conc(small_packed, T, P, Y)
+    fwd, rev = rates.eval_rxn_rates(small_packed, T, P, conc)
+    pm = rates.get_rxn_pres_mod(small_packed, T, P, conc)
+    crev = rates.compact_rev(small_packed, rev)
+    cpm = rates.compact_pres_mod(small_packed, pm)
+    assert crev.shape[-1] == small_packed.n_rev
+    assert cpm.shape[-1] == small_packed.n_pres_mod == 5
 
 
-def test_jit_and_vmap_compatible(h2o2_packed, h2o2_states):
+def test_jit_and_vmap_compatible(small_packed, small_states):
     """Kernels must be jittable and produce identical results."""
     import jax
-    st = h2o2_states
+    st = small_states
     y = jnp.asarray(st['y'][:32])
     P = jnp.asarray(st['P'][:32])
-    f_eager = np.asarray(dydt_mod.dydt_conp(h2o2_packed, 0.0, P, y))
+    f_eager = np.asarray(dydt_mod.dydt_conp(small_packed, 0.0, P, y))
     f_jit = np.asarray(jax.jit(
-        lambda p, yy: dydt_mod.dydt_conp(h2o2_packed, 0.0, p, yy))(P, y))
+        lambda p, yy: dydt_mod.dydt_conp(small_packed, 0.0, p, yy))(P, y))
     # XLA fusion may reassociate the cancelling fwd-rev sums; compare on
     # the per-state *gross flux* scale (near equilibrium the net dy/dt is
     # orders of magnitude below the gross rates)
     T, Y = y[..., 0], y[..., 1:]
-    _, _, rho, conc = thermo.eval_conc(h2o2_packed, T, P, Y)
-    fwd, rev = rates.eval_rxn_rates(h2o2_packed, T, P, conc)
-    pm = rates.get_rxn_pres_mod(h2o2_packed, T, P, conc)
+    _, _, rho, conc = thermo.eval_conc(small_packed, T, P, Y)
+    fwd, rev = rates.eval_rxn_rates(small_packed, T, P, conc)
+    pm = rates.get_rxn_pres_mod(small_packed, T, P, conc)
     gross = np.asarray(pm * (jnp.abs(fwd) + jnp.abs(rev)))
-    nu_abs = np.abs(np.asarray(h2o2_packed.nu_net))
-    mw = np.asarray(h2o2_packed.mw)
+    nu_abs = np.abs(np.asarray(small_packed.nu_net))
+    mw = np.asarray(small_packed.mw)
     scale = ((gross @ nu_abs) * mw / np.asarray(rho)[:, None]).max(
         axis=-1, keepdims=True)
     scale = np.maximum(scale, np.abs(f_eager).max(axis=-1, keepdims=True))
@@ -158,7 +158,7 @@ def test_log_path_sign_on_plog_placeholder(tmp_path):
     corrupting the on-device AD oracle)."""
     import re
 
-    from pyjac_tpu.testers.synthetic import random_states
+    from pyjac_jax.testers.synthetic import random_states
 
     text = synthetic_mechanism(n_species=9, n_reactions=24, seed=7)
     lines = text.splitlines()
@@ -194,12 +194,12 @@ def test_zero_pre_exponential_factor(tmp_path):
     rate_subs.py:27-146)."""
     import jax.numpy as jnp
 
-    from pyjac_tpu.core.mech import Mechanism
-    from pyjac_tpu.core.pack import pack
-    from pyjac_tpu.ops.jacobian import eval_jacobian, jacobian_fwd
-    from pyjac_tpu.ops.rates import eval_rxn_rates
-    from pyjac_tpu.ops.thermo import eval_conc
-    from pyjac_tpu.testers.synthetic import synthetic_mechanism
+    from pyjac_jax.core.mech import Mechanism
+    from pyjac_jax.core.pack import pack
+    from pyjac_jax.ops.jacobian import eval_jacobian, jacobian_fwd
+    from pyjac_jax.ops.rates import eval_rxn_rates
+    from pyjac_jax.ops.thermo import eval_conc
+    from pyjac_jax.testers.synthetic import synthetic_mechanism
 
     text = synthetic_mechanism(n_species=9, n_reactions=12, seed=2,
                                all_features=False)
@@ -217,7 +217,7 @@ def test_zero_pre_exponential_factor(tmp_path):
     assert (packed.A_sign == 0.0).sum() == 1
     dead = int(np.argwhere(packed.A_sign == 0.0)[0][0])
 
-    from pyjac_tpu.testers.synthetic import random_states
+    from pyjac_jax.testers.synthetic import random_states
     y, T, P = random_states(mech, 8, seed=1)
     _, _, _, conc = eval_conc(packed, jnp.asarray(T), jnp.asarray(P),
                               jnp.asarray(y[:, 1:]))

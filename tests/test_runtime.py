@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from pyjac_tpu.runtime import stateio
+from pyjac_jax.runtime import stateio
 
 
 @pytest.fixture(scope='module')
-def raw_rows(pasr_states):
-    return np.ascontiguousarray(pasr_states[:200])
+def raw_rows(small_rows):
+    return np.ascontiguousarray(small_rows[:200])
 
 
 def test_native_build():
@@ -26,9 +26,9 @@ def test_save_load_roundtrip(tmp_path, raw_rows):
     np.testing.assert_array_equal(part, raw_rows[:10])
 
 
-def test_build_states_matches_python(h2o2_mech, raw_rows):
-    y, P, t = stateio.build_states(raw_rows, h2o2_mech.fwd_spec_mapping)
-    fwd = np.asarray(h2o2_mech.fwd_spec_mapping)
+def test_build_states_matches_python(small_mech, raw_rows):
+    y, P, t = stateio.build_states(raw_rows, small_mech.fwd_spec_mapping)
+    fwd = np.asarray(small_mech.fwd_spec_mapping)
     expect_y = np.concatenate(
         [raw_rows[:, 1:2], raw_rows[:, 3:][:, fwd[:-1]]], axis=1)
     np.testing.assert_array_equal(y, expect_y)
@@ -41,14 +41,14 @@ def test_transpose(raw_rows):
     np.testing.assert_array_equal(soa, raw_rows.T)
 
 
-def test_density_matches_kernels(h2o2_packed, h2o2_states):
+def test_density_matches_kernels(small_packed, small_states):
     import jax.numpy as jnp
 
-    from pyjac_tpu.ops.thermo import eval_conc
-    st = h2o2_states
+    from pyjac_jax.ops.thermo import eval_conc
+    st = small_states
     rho = stateio.density(st['T'], st['P'], st['Y_full'],
-                          np.asarray(h2o2_packed.mw))
-    _, _, rho_j, _ = eval_conc(h2o2_packed, jnp.asarray(st['T']),
+                          np.asarray(small_packed.mw))
+    _, _, rho_j, _ = eval_conc(small_packed, jnp.asarray(st['T']),
                                jnp.asarray(st['P']),
                                jnp.asarray(st['Y_full'][:, :-1]))
     np.testing.assert_allclose(rho, np.asarray(rho_j), rtol=1e-13)

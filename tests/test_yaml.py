@@ -4,8 +4,8 @@ on an equivalent dual-format mechanism."""
 import numpy as np
 import pytest
 
-from pyjac_tpu.core.chemkin import read_mech
-from pyjac_tpu.core.ctyaml import read_mech_yaml
+from pyjac_jax.core.chemkin import read_mech
+from pyjac_jax.core.ctyaml import read_mech_yaml
 
 CHEMKIN = """ELEMENTS
 H O N
@@ -159,10 +159,10 @@ def test_yaml_through_full_pipeline(pair, tmp_path):
     """YAML -> Mechanism -> pack -> Jacobian vs AD."""
     import jax.numpy as jnp
 
-    from pyjac_tpu.core.mech import Mechanism
-    from pyjac_tpu.core.pack import pack
-    from pyjac_tpu.ops.jacobian import eval_jacobian, jacobian_fwd
-    from pyjac_tpu.testers.synthetic import random_states
+    from pyjac_jax.core.mech import Mechanism
+    from pyjac_jax.core.pack import pack
+    from pyjac_jax.ops.jacobian import eval_jacobian, jacobian_fwd
+    from pyjac_jax.testers.synthetic import random_states
 
     ym = tmp_path / 'm.yaml'
     ym.write_text(YAML)

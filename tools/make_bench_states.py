@@ -62,10 +62,10 @@ def main(argv=None):
     import numpy as np
 
     from __graft_entry__ import _flagship_packed
-    from pyjac_tpu.integrate import gauss_solve
-    from pyjac_tpu.ops.dydt import dydt
-    from pyjac_tpu.ops.jacobian import eval_jacobian
-    from pyjac_tpu.testers.synthetic import random_states
+    from pyjac_jax.integrate import gauss_solve
+    from pyjac_jax.ops.dydt import dydt
+    from pyjac_jax.ops.jacobian import eval_jacobian
+    from pyjac_jax.testers.synthetic import random_states
 
     mech, packed = _flagship_packed()
     N = packed.n_species
@@ -142,9 +142,9 @@ def main_pasr(args):
     import numpy as np
 
     from __graft_entry__ import _flagship_packed
-    from pyjac_tpu.ops.dydt import dydt
-    from pyjac_tpu.ops.jacobian import eval_jacobian
-    from pyjac_tpu.testers import pasr
+    from pyjac_jax.ops.dydt import dydt
+    from pyjac_jax.ops.jacobian import eval_jacobian
+    from pyjac_jax.testers import pasr
 
     mech, packed = _flagship_packed()
     N = packed.n_species
@@ -165,7 +165,7 @@ def main_pasr(args):
     # framework's own stiff integrator (scipy's BDF inside the PaSR
     # chemistry substep NaNs if particles start at the raw mixed
     # composition — the initial |dydt| is ~1e16)
-    from pyjac_tpu.integrate import integrate
+    from pyjac_jax.integrate import integrate
     fw = np.asarray(mech.fwd_spec_mapping)
     y_cur = np.concatenate([[1900.0], Y_react[fw][:-1]])[None]
     P_pa = 10.0 * 101325.0

@@ -1,7 +1,8 @@
 """Regenerate the reference-C golden fixtures (tests/data/golden_*.npz).
 
 This is the checked-in provenance for the accuracy bar: it drives the
-*reference's own code generator* (pyJac v1.0.6 at /root/reference) over
+*reference's own code generator* (a pyJac v1.0.6 checkout, given by
+``--reference`` or the ``PYJAC_REFERENCE`` environment variable) over
 a mechanism, compiles the emitted C with gcc -O2, evaluates every
 intermediate (conc, fwd/rev rates, pres_mod, spec rates, dydt, the
 analytical Jacobian) over a set of states, and writes the golden npz —
@@ -16,12 +17,12 @@ rate_subs.py:2431). ``--conv`` applies exactly those two token fixes to
 the emitted text before compiling; nothing else is modified.
 
 Usage (regenerate + verify the checked-in fixtures):
-  python tools/make_golden.py --mech /root/reference/data/h2o2.inp \
+  python tools/make_golden.py --reference PYJAC --mech PYJAC/data/h2o2.inp \
       --from-golden tests/data/golden_h2o2_refc.npz \
-      --out /tmp/regen.npz --compare tests/data/golden_h2o2_refc.npz
-  python tools/make_golden.py --synthetic 9,24,7 \
+      --out regen.npz --compare tests/data/golden_h2o2_refc.npz
+  python tools/make_golden.py --reference PYJAC --synthetic 9,24,7 \
       --from-golden tests/data/golden_synth_refc.npz \
-      --out /tmp/regen_synth.npz --compare tests/data/golden_synth_refc.npz
+      --out regen_synth.npz --compare tests/data/golden_synth_refc.npz
   python tools/make_golden.py --mech ... --conv --from-golden ... --out ...
 
 ``--bench`` instead times N eval_jacob sweeps with the independently
@@ -39,7 +40,6 @@ import tempfile
 
 import numpy as np
 
-REFERENCE = '/root/reference'
 
 _DRIVER = r'''
 #include <stdio.h>
@@ -193,10 +193,10 @@ def _fix_netzero_reactions(build_dir):
                 open(p, 'w').write(fixed)
 
 
-def generate_reference_c(mech, therm, build_dir, conv=False):
-    """Run the reference's codegen; apply the two documented one-token
-    CONV syntax fixes to the emitted text."""
-    sys.path.insert(0, REFERENCE)
+def generate_reference_c(reference, mech, therm, build_dir, conv=False):
+    """Run the codegen of the pyJac checkout ``reference``; apply the
+    two documented one-token CONV syntax fixes to the emitted text."""
+    sys.path.insert(0, reference)
     from pyjac.core.create_jacobian import create_jacobian
     os.makedirs(build_dir, exist_ok=True)
     create_jacobian(lang='c', mech_name=mech, therm_name=therm,
@@ -273,7 +273,7 @@ def load_states(args, n_sp):
             d = d[idx]
         sys.path.insert(0, os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))
-        from pyjac_tpu.core.mech import Mechanism
+        from pyjac_jax.core.mech import Mechanism
         mech = Mechanism.from_files(args.mech, args.therm)
         Y = d[:, 3:][:, mech.fwd_spec_mapping]
         y = np.concatenate([d[:, 1:2], Y[:, :-1]], axis=1)
@@ -283,6 +283,10 @@ def load_states(args, n_sp):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--reference',
+                    default=os.environ.get('PYJAC_REFERENCE'),
+                    help='pyJac v1.0.6 checkout whose code generator '
+                         'produces the golden (default: $PYJAC_REFERENCE)')
     ap.add_argument('--mech', help='mechanism file (.inp/.dat)')
     ap.add_argument('--therm', default=None)
     ap.add_argument('--synthetic', default=None,
@@ -313,6 +317,8 @@ def main(argv=None):
     ap.add_argument('--keep', default=None,
                     help='keep the build directory at this path')
     args = ap.parse_args(argv)
+    if not args.reference:
+        ap.error('--reference (or PYJAC_REFERENCE) is required')
 
     tmp = args.keep or tempfile.mkdtemp(prefix='refc_')
     mech = args.mech
@@ -321,7 +327,7 @@ def main(argv=None):
         ns, nr, seed = (int(x) for x in spec.split(','))
         sys.path.insert(0, os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))
-        from pyjac_tpu.testers.synthetic import (plausible_mechanism,
+        from pyjac_jax.testers.synthetic import (plausible_mechanism,
                                                  synthetic_mechanism)
         gen = plausible_mechanism if args.plausible else \
             synthetic_mechanism
@@ -332,7 +338,8 @@ def main(argv=None):
         args.mech = mech
 
     build = os.path.join(tmp, 'out')
-    generate_reference_c(mech, args.therm, build, conv=args.conv)
+    generate_reference_c(args.reference, mech, args.therm, build,
+                         conv=args.conv)
 
     # sizes from the emitted header
     hdr = open(os.path.join(build, 'mechanism.h')).read()
